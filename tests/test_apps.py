@@ -5,15 +5,15 @@ import os
 import numpy as np
 import pytest
 
-from vtm_tpu.common.types import ChromaFormat
-from vtm_tpu.decoder.declib import Decoder
-from vtm_tpu.utils.yuv_io import YuvFormat, read_yuv
+from vtm_jax.common.types import ChromaFormat
+from vtm_jax.decoder.declib import Decoder
+from vtm_jax.utils.yuv_io import YuvFormat, read_yuv
 
 TD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "testdata")
 
 
 def _enc(frames, w, h):
-    from vtm_tpu.encoder.enc_lib import EncoderConfig, InterEncoder
+    from vtm_jax.encoder.enc_lib import EncoderConfig, InterEncoder
 
     cfg = EncoderConfig(width=w, height=h, qp=32, max_mtt_depth_intra=0)
     return InterEncoder(cfg).encode(frames)
@@ -22,7 +22,7 @@ def _enc(frames, w, h):
 def test_parcat_gop_parallel():
     """Two overlapping segments stitch into one decodable stream with
     continuous POCs (App/Parcat readme: GOP-parallel encoding)."""
-    from vtm_tpu.apps.parcat import parcat
+    from vtm_jax.apps.parcat import parcat
 
     fmt = YuvFormat(64, 64, ChromaFormat.YUV420, 8)
     frames = read_yuv(f"{TD}/tiny64_64x64_420_8.yuv", fmt, 5)
@@ -41,7 +41,7 @@ def test_parcat_gop_parallel():
 
 
 def test_sei_removal():
-    from vtm_tpu.apps.sei_removal import remove_sei
+    from vtm_jax.apps.sei_removal import remove_sei
 
     path = os.path.join(TD, "ai_min_tiny64_qp27.bit")
     if not os.path.exists(path):
@@ -55,8 +55,8 @@ def test_sei_removal():
 
 
 def test_stream_merge_and_extract():
-    from vtm_tpu.apps.bitstream_extract import extract_layer
-    from vtm_tpu.apps.stream_merge import merge_streams
+    from vtm_jax.apps.bitstream_extract import extract_layer
+    from vtm_jax.apps.stream_merge import merge_streams
 
     a = os.path.join(TD, "ai_min_tiny64_qp27.bit")
     b = os.path.join(TD, "ai_min_tiny64_qp37.bit")
@@ -81,9 +81,9 @@ def test_vps_dci_parse():
     """VPS body + DCI parsing (VLCReader.cpp parseVPS/parseDCI behavior):
     the merged two-layer stream's VPS parses with correct layer/OLS
     derivation, and HRD/VUI-bearing SPS streams activate."""
-    from vtm_tpu.apps.stream_merge import merge_streams
-    from vtm_tpu.bitstream import reader as nalio
-    from vtm_tpu.decoder import vlc
+    from vtm_jax.apps.stream_merge import merge_streams
+    from vtm_jax.bitstream import reader as nalio
+    from vtm_jax.decoder import vlc
 
     a = os.path.join(TD, "ai_min_tiny64_qp27.bit")
     if not os.path.exists(a):
@@ -118,8 +118,8 @@ def test_sei_suite_parse():
     """Typed SEI payload parsing (SEIread.cpp behavior): buffering period
     + picture timing from the HRD golden, plus the HDR metadata payload
     parsers on synthetic payloads."""
-    from vtm_tpu.decoder import sei as S
-    from vtm_tpu.decoder.declib import Decoder
+    from vtm_jax.decoder import sei as S
+    from vtm_jax.decoder.declib import Decoder
 
     h = os.path.join(TD, "ai_hrdvui_small208_qp32.bit")
     if not os.path.exists(h):

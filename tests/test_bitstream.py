@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from vtm_tpu.bitstream.reader import (
+from vtm_jax.bitstream.reader import (
     BitReader,
     ebsp_to_rbsp,
     parse_nal,

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from vtm_tpu.bitstream.writer import BitWriter
-from vtm_tpu.decoder.cabac import CabacDecoder, ContextModels
-from vtm_tpu.encoder.bin_encoder import BinEncoder
+from vtm_jax.bitstream.writer import BitWriter
+from vtm_jax.decoder.cabac import CabacDecoder, ContextModels
+from vtm_jax.encoder.bin_encoder import BinEncoder
 
 
 def test_cabac_roundtrip():

@@ -9,7 +9,7 @@ import os
 
 import pytest
 
-from vtm_tpu.decoder.declib import Decoder
+from vtm_jax.decoder.declib import Decoder
 
 TD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "testdata")
 

@@ -1,6 +1,6 @@
 """Dependent-quantization encoder (trellis) tests.
 
-The trellis (ops/quant.quant_dep, native twin vtm_tpu/native/depquant.c) is
+The trellis (ops/quant.quant_dep, native twin vtm_jax/native/depquant.c) is
 the encoder side of VTM's DepQuant (DepQuant.cpp:806-1008); correctness
 contract: levels reconstruct through the normative dequant_dep, and the
 native and Python Viterbi make identical decisions.
@@ -9,8 +9,8 @@ native and Python Viterbi make identical decisions.
 import numpy as np
 import pytest
 
-from vtm_tpu.common import rom
-from vtm_tpu.ops import quant as Q
+from vtm_jax.common import rom
+from vtm_jax.ops import quant as Q
 
 
 QP = (32, 32 // 6, 32 % 6)
@@ -31,10 +31,10 @@ def test_native_matches_python(shape, monkeypatch):
     for _ in range(5):
         c = _rand_block(rng, h, w)
         lev_native = Q.quant_dep(c, QP, 8, LAM, scan)
-        monkeypatch.setenv("VTM_TPU_NO_NATIVE", "1")
+        monkeypatch.setenv("VTM_NO_NATIVE", "1")
         monkeypatch.setattr(Q, "_DQ_NATIVE", None)
         lev_py = Q.quant_dep(c, QP, 8, LAM, scan)
-        monkeypatch.delenv("VTM_TPU_NO_NATIVE")
+        monkeypatch.delenv("VTM_NO_NATIVE")
         monkeypatch.setattr(Q, "_DQ_NATIVE", None)
         assert np.array_equal(lev_native, lev_py)
 
@@ -83,7 +83,7 @@ def test_zero_block_and_last_significant():
 def test_intra_encode_roundtrip_dep_quant(tmp_path):
     """64x64 AI encode with dep_quant on: our decoder reproduces the
     encoder reconstruction bit-exactly (hash-SEI oracle path)."""
-    from vtm_tpu.decoder.declib import Decoder
+    from vtm_jax.decoder.declib import Decoder
 
     rng = np.random.default_rng(11)
     y = np.clip(
@@ -94,7 +94,7 @@ def test_intra_encode_roundtrip_dep_quant(tmp_path):
     ).astype(np.int32)
     u = np.full((32, 32), 100, np.int32)
     v = np.full((32, 32), 150, np.int32)
-    from vtm_tpu.encoder.enc_lib import EncoderConfig, IntraEncoder
+    from vtm_jax.encoder.enc_lib import EncoderConfig, IntraEncoder
 
     cfg = EncoderConfig(width=64, height=64, qp=32, dep_quant=True)
     enc = IntraEncoder(cfg)

@@ -1,6 +1,6 @@
 """End-to-end All-Intra encoder round-trip tests.
 
-The encoder (vtm_tpu.encoder.enc_lib.IntraEncoder) must produce a stream
+The encoder (vtm_jax.encoder.enc_lib.IntraEncoder) must produce a stream
 that our own (VTM-conformance-verified) decoder parses fully and whose
 decoded-picture-hash SEI verifies — the same oracle VTM uses
 (DecLib.cpp:751-756). VTM DecoderApp conformance for the same streams is
@@ -10,10 +10,10 @@ exercised out-of-band (see .claude/skills/verify).
 import numpy as np
 import pytest
 
-from vtm_tpu.common.types import ChromaFormat
-from vtm_tpu.decoder.declib import Decoder
-from vtm_tpu.encoder.enc_lib import EncoderConfig, IntraEncoder
-from vtm_tpu.utils.yuv_io import YuvFormat, read_yuv
+from vtm_jax.common.types import ChromaFormat
+from vtm_jax.decoder.declib import Decoder
+from vtm_jax.encoder.enc_lib import EncoderConfig, IntraEncoder
+from vtm_jax.utils.yuv_io import YuvFormat, read_yuv
 
 TESTDATA = "testdata"
 
@@ -52,7 +52,7 @@ def test_roundtrip_small208_qp32():
 
 def test_roundtrip_inter_ldp_tiny64():
     """InterEncoder: IDR + P frames, own-decoder hash verification."""
-    from vtm_tpu.encoder.enc_lib import InterEncoder
+    from vtm_jax.encoder.enc_lib import InterEncoder
 
     fmt = YuvFormat(64, 64, ChromaFormat.YUV420, 8)
     frames = read_yuv(f"{TESTDATA}/tiny64_64x64_420_8.yuv", fmt, 3)
@@ -69,7 +69,7 @@ def test_roundtrip_inter_ldp_tiny64():
 
 def test_roundtrip_inter_ldb_tiny64():
     """LowDelayBEncoder: IDR + B frames (L0=L1=prev), bi/uni AMVP + merge."""
-    from vtm_tpu.encoder.enc_lib import LowDelayBEncoder
+    from vtm_jax.encoder.enc_lib import LowDelayBEncoder
 
     fmt = YuvFormat(64, 64, ChromaFormat.YUV420, 8)
     frames = read_yuv(f"{TESTDATA}/tiny64_64x64_420_8.yuv", fmt, 3)
@@ -87,7 +87,7 @@ def test_roundtrip_inter_ldb_tiny64():
 def test_roundtrip_inter_ra_tiny64():
     """RandomAccessEncoder: hierarchical-B GOP with dyadic bisection and
     RPL keep-alive entries for the pyramid."""
-    from vtm_tpu.encoder.enc_lib import RandomAccessEncoder
+    from vtm_jax.encoder.enc_lib import RandomAccessEncoder
 
     fmt = YuvFormat(64, 64, ChromaFormat.YUV420, 8)
     frames = read_yuv(f"{TESTDATA}/tiny64_64x64_420_8.yuv", fmt, 5)
@@ -128,7 +128,7 @@ def test_roundtrip_intra_sao():
 
 def test_rate_control_ldb():
     """λ-domain rate control steers per-picture QP toward the target."""
-    from vtm_tpu.encoder.enc_lib import LowDelayBEncoder
+    from vtm_jax.encoder.enc_lib import LowDelayBEncoder
 
     fmt = YuvFormat(208, 120, ChromaFormat.YUV420, 8)
     frames = read_yuv(f"{TESTDATA}/small208_208x120_420_8.yuv", fmt, 3) * 2
@@ -152,7 +152,7 @@ def test_rate_control_ldb():
 def test_ctu_rate_control_ldb():
     """CTU-level R-λ rate control: per-CTU QPs vary inside inter pictures
     (coded via cu_qp_delta) and the stream stays hash-exact."""
-    from vtm_tpu.encoder.enc_lib import LowDelayBEncoder
+    from vtm_jax.encoder.enc_lib import LowDelayBEncoder
 
     fmt = YuvFormat(208, 120, ChromaFormat.YUV420, 8)
     frames = read_yuv(f"{TESTDATA}/small208_208x120_420_8.yuv", fmt, 3)
@@ -173,7 +173,7 @@ def test_ctu_rate_control_ldb():
 
 def test_mctf_prefilter():
     """MCTF temporal prefilter reduces bits on noisy static content."""
-    from vtm_tpu.encoder.enc_lib import LowDelayBEncoder
+    from vtm_jax.encoder.enc_lib import LowDelayBEncoder
 
     fmt = YuvFormat(208, 120, ChromaFormat.YUV420, 8)
     base = read_yuv(f"{TESTDATA}/small208_208x120_420_8.yuv", fmt, 1)[0]
@@ -199,7 +199,7 @@ def test_mctf_prefilter():
 def test_wpp_encode_roundtrip():
     """WPP encode: per-CTU-row substreams with context sync + entry points;
     decodes hash-exact in our (WPP-aware) decoder."""
-    from vtm_tpu.encoder.enc_lib import LowDelayBEncoder
+    from vtm_jax.encoder.enc_lib import LowDelayBEncoder
 
     fmt = YuvFormat(208, 120, ChromaFormat.YUV420, 8)
     frames = read_yuv(f"{TESTDATA}/small208_208x120_420_8.yuv", fmt, 2)
@@ -218,7 +218,7 @@ def test_decoder_bit_stats():
     """Analyser-build equivalent: per-syntax bin/bit breakdown."""
     import os
 
-    from vtm_tpu.decoder.stats import BitStats
+    from vtm_jax.decoder.stats import BitStats
 
     path = os.path.join(TESTDATA, "ai_min_tiny64_qp27.bit")
     if not os.path.exists(path):
@@ -280,7 +280,7 @@ def test_roundtrip_ra_tmvp_mmvd():
     """RA with TMVP merge/AMVP candidates and MMVD search: streams must
     self-decode hash-exact (reference-decoder conformance is checked
     out-of-band by tools/bdrate.py)."""
-    from vtm_tpu.encoder.enc_lib import RandomAccessEncoder
+    from vtm_jax.encoder.enc_lib import RandomAccessEncoder
 
     fmt = YuvFormat(64, 64, ChromaFormat.YUV420, 8)
     frames = read_yuv(f"{TESTDATA}/tiny64_64x64_420_8.yuv", fmt, 5)
@@ -301,7 +301,7 @@ def test_roundtrip_ra_amvr_bcw():
     """RA with AMVR (IMV full/4-pel) and BCW weight trials: self-decode
     hash-exact; syntax mirrors verified against the reference DecoderApp
     out-of-band."""
-    from vtm_tpu.encoder.enc_lib import RandomAccessEncoder
+    from vtm_jax.encoder.enc_lib import RandomAccessEncoder
 
     fmt = YuvFormat(64, 64, ChromaFormat.YUV420, 8)
     frames = read_yuv(f"{TESTDATA}/tiny64_64x64_420_8.yuv", fmt, 5)
@@ -324,7 +324,7 @@ def test_roundtrip_ra_geo():
     import numpy as np
     from scipy.ndimage import gaussian_filter
 
-    from vtm_tpu.encoder.enc_lib import RandomAccessEncoder
+    from vtm_jax.encoder.enc_lib import RandomAccessEncoder
 
     rng = np.random.default_rng(1)
     base = gaussian_filter(rng.integers(0, 255, (200, 200)).astype(np.float64), 2) * 2

@@ -8,8 +8,8 @@ must stay bit-exact through our decoder (hash-SEI oracle).
 import numpy as np
 import pytest
 
-from vtm_tpu.decoder.declib import Decoder
-from vtm_tpu.encoder.enc_lib import EncoderConfig, IntraEncoder
+from vtm_jax.decoder.declib import Decoder
+from vtm_jax.encoder.enc_lib import EncoderConfig, IntraEncoder
 
 
 def _encoder_with_cu(qp=32, lfnst=True):
@@ -28,7 +28,7 @@ def test_fwd_inv_lfnst_adjoint(size, mode):
     """Round-tripping LFNST-domain coefficients through the normative
     inverse and back through the forward must reproduce them (the basis
     rows are orthogonal with norm^2 = 2^14, so (M (x M >> 7)) >> 7 ~ x)."""
-    from vtm_tpu.decoder.cs import Rect
+    from vtm_jax.decoder.cs import Rect
 
     w, h = size
     enc = _encoder_with_cu()
@@ -40,7 +40,7 @@ def test_fwd_inv_lfnst_adjoint(size, mode):
     zero_out = 8 if ((w == 4 and h == 4) or (w == 8 and h == 8)) else 16
     rng = np.random.default_rng(w * 100 + h + mode)
     for idx in (1, 2):
-        from vtm_tpu.common import rom
+        from vtm_jax.common import rom
 
         whge3 = w >= 8 and h >= 8
         scan = rom.get(f"scanTL8x8_w{w}") if whge3 else rom.scan(1, w, h)

@@ -6,10 +6,10 @@ the tools actually being chosen on natural content.
 
 import numpy as np
 
-from vtm_tpu.common.types import ChromaFormat
-from vtm_tpu.decoder.declib import Decoder
-from vtm_tpu.encoder.enc_lib import EncoderConfig, IntraEncoder
-from vtm_tpu.utils.yuv_io import YuvFormat, read_yuv
+from vtm_jax.common.types import ChromaFormat
+from vtm_jax.decoder.declib import Decoder
+from vtm_jax.encoder.enc_lib import EncoderConfig, IntraEncoder
+from vtm_jax.utils.yuv_io import YuvFormat, read_yuv
 
 
 def test_mip_mrl_lfnst_roundtrip_and_selection():
@@ -54,7 +54,7 @@ def test_mrl_signalling_roundtrip():
 def test_cclm_chroma_search_roundtrip():
     """CCLM chroma search: LM modes selected on natural content; bit-exact
     self-decode with the chroma linear-model signalling."""
-    from vtm_tpu.decoder import cs as D
+    from vtm_jax.decoder import cs as D
 
     fmt = YuvFormat(208, 120, ChromaFormat.YUV420, 8)
     frames = read_yuv("testdata/small208_208x120_420_8.yuv", fmt, 1)
@@ -94,7 +94,7 @@ def test_angular_sad_batch_exact():
     is bit-exact with per-mode pred_angular(+PDPC) SAD."""
     import numpy as np
 
-    from vtm_tpu.ops import intra as I
+    from vtm_jax.ops import intra as I
 
     rng = np.random.default_rng(7)
     for _ in range(40):

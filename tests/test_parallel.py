@@ -1,22 +1,22 @@
-"""Parallel scaling paths: GOP-parallel encode + parcat stitch (DCN axis),
-mesh sharding + halo exchange (ICI axis, virtual CPU mesh)."""
+"""Parallel scaling paths: GOP-parallel encode + parcat stitch (segment
+axis), mesh sharding + halo exchange (tile axis, virtual CPU mesh)."""
 
 import os
 
 import numpy as np
 import pytest
 
-from vtm_tpu.common.types import ChromaFormat
-from vtm_tpu.decoder.declib import Decoder
-from vtm_tpu.utils.yuv_io import YuvFormat, read_yuv
+from vtm_jax.common.types import ChromaFormat
+from vtm_jax.decoder.declib import Decoder
+from vtm_jax.utils.yuv_io import YuvFormat, read_yuv
 
 TD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "testdata")
 
 
 def test_gop_parallel_encode_bit_exact():
     """Parallel segment encode + parcat == sequential segment encode."""
-    from vtm_tpu.apps.parcat import parcat
-    from vtm_tpu.parallel.gop import encode_parallel
+    from vtm_jax.apps.parcat import parcat
+    from vtm_jax.parallel.gop import encode_parallel
 
     fmt = YuvFormat(64, 64, ChromaFormat.YUV420, 8)
     frames = read_yuv(f"{TD}/tiny64_64x64_420_8.yuv", fmt, 4)
@@ -41,10 +41,10 @@ def test_halo_exchange_cpu_mesh():
     import jax.numpy as jnp
     from functools import partial
 
-    from jax.experimental.shard_map import shard_map
+    from jax import shard_map
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from vtm_tpu.parallel.mesh import codec_mesh, halo_exchange
+    from vtm_jax.parallel.mesh import codec_mesh, halo_exchange
 
     mesh = codec_mesh(4, gop=1)
     rows_per, w, halo = 8, 16, 2
@@ -82,7 +82,7 @@ def test_sharded_recon_step_cpu_mesh():
     jax.config.update("jax_platforms", "cpu")
     if len(jax.devices()) < 4:
         pytest.skip("needs >=4 virtual devices")
-    from vtm_tpu.parallel.mesh import codec_mesh, sharded_recon_step
+    from vtm_jax.parallel.mesh import codec_mesh, sharded_recon_step
 
     mesh = codec_mesh(4, gop=2)
     rng = np.random.default_rng(0)

@@ -11,8 +11,8 @@ PDPC) costed with satd() on source-built reference samples.
 import numpy as np
 import pytest
 
-from vtm_tpu.ops import intra as I
-from vtm_tpu.ops import rdcost
+from vtm_jax.ops import intra as I
+from vtm_jax.ops import rdcost
 
 RNG = np.random.default_rng(42)
 
@@ -118,10 +118,10 @@ def _scalar_costs(src, srcpad, x, y, w, h):
 
 
 def test_frame_rmd_matches_scalar():
-    from vtm_tpu.encoder import rmd_tpu
+    from vtm_jax.encoder import frame_rmd
 
     src = RNG.integers(0, 256, (48, 64)).astype(np.int32)
-    fr = rmd_tpu.FrameRMD(src, _Cfg(), 1.0)
+    fr = frame_rmd.FrameRMD(src, _Cfg(), 1.0)
     srcpad = np.pad(src, ((1, 130), (1, 130)), mode="edge").astype(np.int64)
     cases = [(4, 4, 0, 0), (8, 8, 4, 4), (16, 16, 16, 16), (8, 4, 12, 8),
              (4, 8, 40, 24), (16, 8, 8, 4), (8, 16, 24, 16), (32, 32, 32, 0),

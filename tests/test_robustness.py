@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from vtm_tpu.bitstream import reader as nalio
-from vtm_tpu.decoder.declib import Decoder
+from vtm_jax.bitstream import reader as nalio
+from vtm_jax.decoder.declib import Decoder
 
 TESTDATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "testdata")

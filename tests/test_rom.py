@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from vtm_tpu.common import rom
+from vtm_jax.common import rom
 
 
 def test_dct2_p4_inverse():

@@ -11,10 +11,10 @@ rotation so affine AMVP wins naturally.
 import numpy as np
 import pytest
 
-from vtm_tpu.common.types import ChromaFormat
-from vtm_tpu.decoder.declib import Decoder
-from vtm_tpu.encoder import enc_lib as EL
-from vtm_tpu.utils.yuv_io import YuvFormat, read_yuv
+from vtm_jax.common.types import ChromaFormat
+from vtm_jax.decoder.declib import Decoder
+from vtm_jax.encoder import enc_lib as EL
+from vtm_jax.utils.yuv_io import YuvFormat, read_yuv
 
 TESTDATA = "testdata"
 

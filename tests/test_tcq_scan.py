@@ -10,10 +10,10 @@ low-latency engine the encoder loads.
 import numpy as np
 import pytest
 
-from vtm_tpu import native
-from vtm_tpu.common import rom
-from vtm_tpu.encoder import dq_ctx
-from vtm_tpu.encoder.tcq_scan import TcqBatch
+from vtm_jax import native
+from vtm_jax.common import rom
+from vtm_jax.encoder import dq_ctx
+from vtm_jax.encoder.tcq_scan import TcqBatch
 
 
 def _qparams(w, h, qp0, lam=50.0, bit_depth=8):
@@ -130,9 +130,9 @@ def test_quant_dep_ctx_reconstructs():
     """The encoder entry point returns conformant levels: reconstruction
     through the normative dequant_dep round-trips without error and the
     distortion beats naive scalar quantization on a dense block."""
-    from vtm_tpu.decoder.cabac import ContextModels
-    from vtm_tpu.encoder.bin_encoder import BitEstimator
-    from vtm_tpu.ops import quant as Q
+    from vtm_jax.decoder.cabac import ContextModels
+    from vtm_jax.encoder.bin_encoder import BitEstimator
+    from vtm_jax.ops import quant as Q
 
     rng = np.random.default_rng(5)
     w = h = 16

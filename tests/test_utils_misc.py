@@ -6,7 +6,7 @@ import numpy as np
 def test_mcts_mv_constraint():
     from types import SimpleNamespace
 
-    from vtm_tpu.common import mcts
+    from vtm_jax.common import mcts
 
     pps = SimpleNamespace(ctu_to_tile_col=[0, 0, 1, 1],
                           ctu_to_tile_row=[0, 0],

@@ -73,7 +73,7 @@ def bd_rate(r1, p1, r2, p2):
 
 
 def encode_ours(frames, w, h, mode, qp, bit_depth=8):
-    from vtm_tpu.encoder.enc_lib import (
+    from vtm_jax.encoder.enc_lib import (
         EncoderConfig, IntraEncoder, LowDelayBEncoder, RandomAccessEncoder)
 
     cfg = EncoderConfig(width=w, height=h, qp=qp, bit_depth=bit_depth)
@@ -95,7 +95,7 @@ def encode_ours(frames, w, h, mode, qp, bit_depth=8):
 
 
 def decode_ours(bitstream):
-    from vtm_tpu.decoder.declib import Decoder
+    from vtm_jax.decoder.declib import Decoder
 
     dec = Decoder()
     pics = dec.decode_stream(bitstream)
@@ -137,9 +137,6 @@ def ref_decode_check(bit, workdir):
 
 
 def main():
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     ap = argparse.ArgumentParser()
     ap.add_argument("--yuv", required=True)
     ap.add_argument("--width", type=int, required=True)

@@ -29,7 +29,7 @@ from tools.bdrate import (REF_BIN, bd_rate, psnr, read_yuv,  # noqa: E402
 
 
 def encode_cfg(name, frames, w, h, qp):
-    from vtm_tpu.encoder.enc_lib import (EncoderConfig, IntraEncoder,
+    from vtm_jax.encoder.enc_lib import (EncoderConfig, IntraEncoder,
                                          RandomAccessEncoder)
 
     cfg = EncoderConfig(width=w, height=h, qp=qp)
@@ -40,7 +40,7 @@ def encode_cfg(name, frames, w, h, qp):
         cfg.mts = cfg.lfnst = cfg.mip = cfg.mrl = cfg.cclm = cfg.isp = True
     env = {}
     if "tcq4" in name:
-        env["VTM_TPU_TCQ_4STATE"] = "1"
+        env["VTM_TCQ_4STATE"] = "1"
     if "no_ccalf" in name:
         cfg.ccalf = False
     if "no_rmd" in name:
@@ -78,9 +78,6 @@ def encode_cfg(name, frames, w, h, qp):
 
 
 def main():
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     ap = argparse.ArgumentParser()
     ap.add_argument("--yuv", required=True)
     ap.add_argument("--width", type=int, required=True)

@@ -1,6 +1,6 @@
 #!/bin/bash
 # Build the ROM dumper against the reference CommonLib and produce
-# vtm_tpu/common/rom_tables.npz.
+# vtm_jax/common/rom_tables.npz.
 set -e
 SRC=/tmp/vtm-src
 LIB=$SRC/lib/ninja/gcc-12.2/x86_64/release
@@ -9,4 +9,4 @@ g++ -O1 -std=gnu++14 -Wno-deprecated-declarations \
   tools/dump_rom.cpp $LIB/libCommonLib.a $LIB/libUtilities.a -fopenmp \
   -o /tmp/dump_rom
 /tmp/dump_rom /tmp/rom.bin
-python tools/rom_to_npz.py /tmp/rom.bin vtm_tpu/common/rom_tables.npz
+python tools/rom_to_npz.py /tmp/rom.bin vtm_jax/common/rom_tables.npz

@@ -12,8 +12,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from vtm_tpu.common.types import ChromaFormat
-from vtm_tpu.utils.yuv_io import YuvFormat, write_yuv
+from vtm_jax.common.types import ChromaFormat
+from vtm_jax.utils.yuv_io import YuvFormat, write_yuv
 
 
 def synth_clip(w: int, h: int, frames: int, seed: int = 7, bit_depth: int = 8):
