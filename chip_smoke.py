@@ -12,15 +12,13 @@ process on the CPU (the plain reference, which stays off the card).
     python chip_smoke.py --goldens   phases 1-5, then every testdata/*.bit
     python chip_smoke.py --four      only the four-card paths: GOP-parallel
                                      encode and width-sharded live decode
-    JAX_PLATFORMS=cpu python chip_smoke.py --rehearse
-                                     every phase on any backend, with the
-                                     1080p encode cut to 832x480; never passes
 
 Each phase prints one line.  The last line is one JSON object,
 {"ok": ..., "device": {"platform": ..., "kind": ..., "count": ...}}, and
-"ok" is true only when every phase passed on a GPU.  Without a GPU (and
-without --rehearse) the script stops after the device phase with exit
-code 1 and prints no JSON.
+"ok" is true only when every phase passed on a GPU.  Without a GPU (for
+example under JAX_PLATFORMS=cpu) every phase still runs, as a rehearsal
+with the 1080p encode cut to 832x480, and the run ends "ok": false with
+exit code 1.
 """
 
 from __future__ import annotations
@@ -41,7 +39,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 RA_D = "ra_full_bq416_qp37"  # class D 416x240, 8 frames, full inter toolset
 AI_B = "ai_full_hd1080_qp37"  # class B 1920x1080, 2 frames
 HD = (1920, 1080)
-HD_REHEARSE = (832, 480)  # class C: keeps the CPU rehearsal small
+HD_REHEARSE = (832, 480)  # class C: keeps a run without a GPU small
 D_SIZE = (416, 240)
 CPU_CHILD_TIMEOUT_S = 900
 
@@ -203,13 +201,20 @@ def _encodes(hd):
     return out
 
 
-def cpu_reference(outdir: str, rehearse: bool) -> int:
+def _hd_size() -> tuple[int, int]:
+    """The large encode's size: full 1080p on the GPU, class C elsewhere."""
+    import jax
+
+    return HD if jax.default_backend() == "gpu" else HD_REHEARSE
+
+
+def cpu_reference(outdir: str, hd: tuple[int, int]) -> int:
     """Child process: the same encodes on the CPU, written to `outdir`."""
     import jax
     import numpy as np
 
     _check(jax.default_backend() == "cpu", jax.default_backend())
-    out = _encodes(HD_REHEARSE if rehearse else HD)
+    out = _encodes(hd)
     for k in ("ai", "ldb"):
         with open(os.path.join(outdir, k + ".bit"), "wb") as f:
             f.write(out[k][1])
@@ -217,12 +222,12 @@ def cpu_reference(outdir: str, rehearse: bool) -> int:
     return 0
 
 
-def _start_cpu_reference(outdir: str, rehearse: bool):
+def _start_cpu_reference(outdir: str, hd: tuple[int, int]):
     """Start the CPU child; its output goes to <outdir>/log.txt (a file,
     not a pipe nobody drains while the device encodes run)."""
     env = dict(os.environ, JAX_PLATFORMS="cpu", CUDA_VISIBLE_DEVICES="")
     cmd = [sys.executable, os.path.abspath(__file__), "--cpu-reference",
-           outdir] + (["--rehearse"] if rehearse else [])
+           outdir, str(hd[0]), str(hd[1])]
     with open(os.path.join(outdir, "log.txt"), "w") as log:
         return subprocess.Popen(cmd, env=env, stdout=log,
                                 stderr=subprocess.STDOUT)
@@ -236,9 +241,9 @@ def phase_encode(st) -> str:
     from tools.make_testdata import synth_clip
     from vtm_jax.encoder.enc_lib import EncoderConfig, IntraEncoder
 
-    hd = HD_REHEARSE if st["rehearse"] else HD
+    hd = _hd_size()
     outdir = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
-    child = _start_cpu_reference(outdir, st["rehearse"])
+    child = _start_cpu_reference(outdir, hd)
     try:
         frame = synth_clip(*hd, 1)[0]
         t_hd, bits_hd = _timed(lambda: IntraEncoder(
@@ -312,12 +317,15 @@ def phase_gop_parallel(st) -> str:
     frames = synth_clip(w, h, 8)
     cfg = dict(width=w, height=h, qp=32)
     n, cards = worker_cards(4, 4, visible_cards(), os.cpu_count() or 1)
-    if not st["rehearse"]:
-        _check(cards is not None and len(cards) == 4, f"cards {cards}")
     t_par, par = _timed(lambda: encode_parallel(
         frames, cfg, mode="ldb", segment_len=2, workers=4))
     t_seq, seq = _timed(lambda: encode_parallel(
         frames, cfg, mode="ldb", segment_len=2, workers=1))
+    import jax  # loaded by the sequential encode, after the workers ended
+
+    if jax.default_backend() == "gpu":
+        _check(cards is not None and len(cards) == 4,
+               f"workers were pinned to cards {cards}, not to 4 cards")
     _check(par == seq, f"parallel stream differs from the sequential one "
                        f"({len(par)} vs {len(seq)} bytes)")
     _decode(par, 8)
@@ -374,12 +382,10 @@ def main(argv=None) -> int:
                     help="also decode every testdata/*.bit")
     ap.add_argument("--four", action="store_true",
                     help="run only the four-card paths")
-    ap.add_argument("--rehearse", action="store_true",
-                    help="run every phase on any backend, 1080p encode cut "
-                         "to 832x480; never passes")
     ap.add_argument("--trace", metavar="DIR",
                     help="write a jax.profiler trace of phases 2-4 to DIR")
-    ap.add_argument("--cpu-reference", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--cpu-reference", nargs=3, metavar=("DIR", "W", "H"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     try:
         import vtm_jax  # noqa: F401
@@ -389,23 +395,19 @@ def main(argv=None) -> int:
               f"script ({e})", file=sys.stderr)
         return 1
     if args.cpu_reference:
-        return cpu_reference(args.cpu_reference, args.rehearse)
+        outdir, w, h = args.cpu_reference
+        return cpu_reference(outdir, (int(w), int(h)))
 
     from vtm_jax.utils.device_info import card_line
 
     print(f"card: {card_line()}", flush=True)
-    st = {"rehearse": args.rehearse, "device": None}
+    st = {"device": None}
     if args.four:
         phases = [("gop-parallel encode", phase_gop_parallel),
                   ("sharded decode", phase_sharded_decode)]
         ok = all([_run(n, f, st) for n, f in phases])
     else:
         ok = _run("device", phase_device, st)
-        if not ok and not args.rehearse and (
-                st["device"] is None or st["device"]["platform"] != "gpu"):
-            print("chip_smoke: no GPU; run with --rehearse to run every "
-                  "phase anyway", file=sys.stderr)
-            return 1
         phases = [("RA decode", phase_ra_decode),
                   ("AI decode", phase_ai_decode),
                   ("encode", phase_encode)]
@@ -428,7 +430,7 @@ def main(argv=None) -> int:
         from vtm_jax.utils.device_info import jax_device
 
         st["device"] = jax_device()
-    ok = ok and not args.rehearse and st["device"]["platform"] == "gpu"
+    ok = ok and st["device"]["platform"] == "gpu"
     print(json.dumps({"ok": ok, "device": st["device"]}), flush=True)
     return 0 if ok else 1
 

@@ -19,7 +19,7 @@ def state():
     if jax.default_backend() != "gpu":
         pytest.skip("needs an NVIDIA GPU; JAX's default backend here is "
                     f"{jax.default_backend()}")
-    return {"rehearse": False, "device": None}
+    return {"device": None}
 
 
 def test_device_phase(state):

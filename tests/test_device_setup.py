@@ -180,6 +180,31 @@ def test_gop_parallel_pinned_workers(monkeypatch):
     assert pinned == single
 
 
+def test_parent_on_cpu_holds_no_card():
+    import jax
+
+    from vtm_jax.parallel import gop
+
+    jax.devices()  # this process's backends are started, on the CPU
+    assert not gop.parent_holds_card()
+
+
+def test_gop_refuses_pinned_workers_when_parent_holds_card(monkeypatch):
+    """A parent that already holds the cards gets a clear error before any
+    worker starts; one process (workers=1) is still allowed."""
+    from vtm_jax.apps import parcat
+    from vtm_jax.parallel import gop
+
+    monkeypatch.setattr(gop, "visible_cards", lambda: ["0", "1"])
+    monkeypatch.setattr(gop, "parent_holds_card", lambda: True)
+    monkeypatch.setattr(gop, "_encode_segment", lambda job: b"seg")
+    monkeypatch.setattr(parcat, "parcat", lambda paths: len(paths))
+    with pytest.raises(RuntimeError, match="holds its cards"):
+        gop.encode_parallel([None] * 4, {}, segment_len=2)
+    assert gop.encode_parallel([None] * 4, {}, segment_len=2,
+                               workers=1) == 2
+
+
 # ---------------------------------------------------------------------------
 # (v) native engines: built from the sources in the tree, none committed
 

@@ -12,7 +12,8 @@ On GPUs each worker is pinned to a card of its own through
 CUDA_VISIBLE_DEVICES, set before the worker imports JAX: a JAX process
 reserves most of its card's memory when it starts, so a second process on
 the same card would fail.  The calling process must not hold a card
-while the workers run.
+while the workers run: encode_parallel refuses to start pinned workers
+once this process has started JAX's GPU backend.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import multiprocessing
 import os
 import subprocess
+import sys
 import tempfile
 from concurrent.futures import ProcessPoolExecutor
 
@@ -54,6 +56,17 @@ def worker_cards(n_segments: int, workers: int | None, cards: list[str],
         return n, None
     n = min(n_segments, len(cards), workers or len(cards))
     return n, cards[:n]
+
+
+def parent_holds_card() -> bool:
+    """Whether this process has started JAX's GPU backend, which reserves
+    memory on every card it sees."""
+    if "jax" not in sys.modules:
+        return False
+    from jax._src import xla_bridge
+
+    return xla_bridge.backends_are_initialized() and any(
+        b.platform == "gpu" for b in xla_bridge.backends().values())
 
 
 def _pin_card(cards) -> None:
@@ -96,6 +109,12 @@ def encode_parallel(frames, cfg_kwargs: dict, mode: str = "ldp",
         ctx = multiprocessing.get_context("spawn")
         pin = {}
         if cards is not None:
+            if parent_holds_card():
+                raise RuntimeError(
+                    "encode_parallel: this process has started JAX on the "
+                    "GPU and holds its cards, so workers pinned to them "
+                    f"({cards}) would run out of memory; call it before "
+                    "this process uses JAX on the GPU, or with workers=1")
             queue = ctx.Queue()
             for c in cards:
                 queue.put(c)
